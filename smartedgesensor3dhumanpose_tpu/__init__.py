@@ -1,4 +1,4 @@
-"""TPU-native multi-view multi-person 3D human pose estimation framework.
+"""Multi-view multi-person 3D human pose estimation framework in JAX.
 
 A from-scratch JAX/XLA rebuild of the capabilities of
 AIS-Bonn/SmartEdgeSensor3DHumanPose (RSS 2021): per-camera 2D keypoint
@@ -10,9 +10,9 @@ velocity-predicted, and reprojected into every camera view as semantic
 feedback.
 
 Everything on the compute path is a pure, fixed-shape array program over a
-(cameras x people x joints) batch, designed for the TPU MXU/VPU and XLA's
-compilation model. The host-side runtime (time synchronizer, replay queue) has
-a native C++ implementation. See SURVEY.md at the repo root for the layer map
+(cameras x people x joints) batch, designed for XLA's compilation model on
+an accelerator (an NVIDIA GPU). The host-side runtime (time synchronizer,
+replay queue) has a native C++ implementation. See SURVEY.md at the repo root for the layer map
 of the reference this framework re-implements.
 """
 

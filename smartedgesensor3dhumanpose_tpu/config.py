@@ -13,6 +13,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+# The values of FusionConfig.assignment_impl (fusion.resolve_assignment_impl).
+ASSIGNMENT_IMPLS = ("auto", "cond_while", "triton")
+
 
 @dataclasses.dataclass(frozen=True)
 class FusionConfig:
@@ -54,17 +57,23 @@ class FusionConfig:
     ut_kappa: float = 0.5
     # Cost assigned to infeasible pairings (MAX_COSTS, :43).
     max_cost: float = 1.0e6
-    # Assignment solver strategy inside the association scan:
-    #  "auto" (default): resolves per backend — the fused Pallas camera
-    #    fold on TPU (one launch; fastest online AND offline), the
-    #    cond-guarded while-loop JV elsewhere,
+    # Implementation of the association fold (fusion.associate):
+    #  "auto" (default): resolved per backend and shape by
+    #    fusion.resolve_assignment_impl — "triton" on a GPU, "cond_while"
+    #    elsewhere,
     #  "cond_while": XLA camera scan with a while-loop JV behind a
-    #    lax.cond so the solver only executes on ambiguous frames
-    #    (literal: never rewritten, even on TPU),
-    #  "pallas_scan": force the fused Pallas camera fold,
-    #  "pallas": XLA camera scan + single-kernel Pallas JV per step,
-    #  "unrolled": XLA camera scan + unrolled XLA JV.
+    #    lax.cond so the solver only executes on ambiguous frames (the
+    #    reference the kernel is tested against),
+    #  "triton": the whole fold as one Pallas-Triton kernel program per
+    #    frame (ops.association_triton; needs a GPU).
     assignment_impl: str = "auto"
+
+    def __post_init__(self) -> None:
+        if self.assignment_impl not in ASSIGNMENT_IMPLS:
+            raise ValueError(
+                f"assignment_impl {self.assignment_impl!r} is not one of "
+                f"{ASSIGNMENT_IMPLS}"
+            )
 
     @property
     def num_input_joints(self) -> int:
@@ -107,9 +116,8 @@ class PriorConfig:
     lm_absolute_error_tol: float = 1.0e-5
     # Linear solver for the LM normal equations + marginals:
     #  "tree": level-grouped block elimination along the bone forest
-    #    (ops/tree_solve.py) — identical math, ~6 batched 3x3 levels; avoids
-    #    XLA's 63x63 Cholesky custom call (~8 us PER MATRIX on TPU, the
-    #    single largest cost in the whole pipeline when the LM is batched).
+    #    (ops/tree_solve.py) — identical math, ~6 batched 3x3 levels instead
+    #    of a batched 63x63 Cholesky.
     #  "dense": equilibrated 63x63 Cholesky (oracle / cross-check path).
     solver: str = "tree"
 
@@ -153,8 +161,8 @@ class PipelineConfig:
     fusion: FusionConfig = dataclasses.field(default_factory=FusionConfig)
     prior: PriorConfig = dataclasses.field(default_factory=PriorConfig)
     tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
-    # Compute dtype for the on-device hot path. float32 is TPU-native; tests
-    # exercise float64 on CPU against the same code.
+    # Compute dtype for the on-device hot path; tests exercise float64 on
+    # CPU against the same code.
     dtype: str = "float32"
 
     def __post_init__(self) -> None:

@@ -160,7 +160,7 @@ def main(argv=None):
             args.cameras, network_latency=args.loop_network_latency
         )
         # Warm up with a throwaway state (the jitted step donates its state
-        # argument on TPU).
+        # argument).
         _, out0 = pipe.step(
             pipe.init_state(), jax.tree.map(lambda a: a[0], frames)
         )

@@ -1,10 +1,11 @@
 """Multi-view fusion: cross-view association + triangulation of one frame.
 
-TPU-native rebuild of the reference's skeleton_3d node hot path
+Accelerator rebuild of the reference's skeleton_3d node hot path
 (skeleton_3d_triang_mult_node.cpp triangulate_persons, :525-997):
 
 * iterative greedy association over the camera axis (Tanke & Gall 2019,
-  :562-674) — a `lax.scan` over cameras carrying a fixed-slot hypothesis set,
+  :562-674) — a fold over cameras carrying a fixed-slot hypothesis set
+  (`lax.scan`, or one Triton kernel program per frame on a GPU),
 * per-joint confidence-weighted DLT triangulation with 3-view / leave-one-out
   outlier rejection (:676-844) — all leave-one-out variants computed as one
   extra batch axis and selected with `argmin`/`where`,
@@ -19,7 +20,6 @@ fixed-shape XLA program.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import NamedTuple, Tuple
 
 import jax
@@ -45,19 +45,17 @@ _ASSIGN_COST_CLIP = 1.0e3
 # Deterministic tie-break for clipped (infeasible) entries: each adds
 # eps * (hyp_index + 1) * (det_index + 1). Equal-total optima that differ in
 # which infeasible detection a hypothesis absorbs would otherwise be broken
-# by solver internals (and the fused Pallas kernel solves the TRANSPOSED
-# problem, whose internal order differs); the product term is symmetric
-# under transposition, so every solver path picks the same assignment. Small
+# by solver internals; the product term is symmetric under transposition,
+# so a solver of either orientation picks the same assignment. Small
 # enough (< 17 at 128x128 slots) never to flip a feasible-vs-infeasible or
 # cross-tier comparison, large enough that distinct products differ by well
 # over the float32 resolution at 1e3 (~1.2e-4).
 _SOLVER_TIE_EPS = 1.0e-3
 # Invalid detection slots get a strictly higher tier than valid-but-
 # infeasible pairings, so a hypothesis with no feasible detection is
-# assigned a VALID infeasible detection whenever one is available — exactly
-# mirroring the fused Pallas kernel, which excludes invalid rows from its
-# (transposed) solve altogether. Which invalid slot absorbs a hypothesis is
-# consumer-invariant (both spawn nothing), so this tier needs no tie-break.
+# assigned a VALID infeasible detection whenever one is available. Which
+# invalid slot absorbs a hypothesis is consumer-invariant (both spawn
+# nothing), so this tier needs no tie-break.
 _INVALID_DET_COST = 2.0 * _ASSIGN_COST_CLIP
 
 
@@ -107,14 +105,11 @@ def _associate_camera(
     The hypothesis x detection cost matrix is assembled from the
     frame-level precomputed per-observation pair costs
     (ops.epipolar.pairwise_association_costs, packaged by `associate`) with
-    ONE one-hot MXU matmul over the hypotheses' observation identities —
-    the sequential step does no epipolar math and materializes no
-    [H, C, D] intermediates. The step body is deliberately free of gathers
-    and scatters: XLA lowers vector-indexed gathers/scatters to serialized
-    dynamic-slices on TPU (microseconds each inside a 64-step scan), so
-    every indexed access is expressed as a one-hot contraction or masked
-    reduction instead; the equivalent 0/1-weighted matmuls under
-    Precision.HIGHEST are exact.
+    ONE one-hot matmul over the hypotheses' observation identities — the
+    sequential step does no epipolar math and materializes no [H, C, D]
+    intermediates. Every indexed access is a one-hot contraction or masked
+    reduction (no vector-indexed gather or scatter inside the sequential
+    fold); the 0/1-weighted matmuls under Precision.HIGHEST are exact.
 
     When no hypothesis exists yet every valid detection seeds one — which
     reproduces the reference's 'first camera with usable detections seeds
@@ -210,38 +205,13 @@ def _associate_camera(
     )
     tie_cost = jnp.where(det_ok[None, :], tie_cost, _INVALID_DET_COST)
 
-    if config.assignment_impl == "cond_while":
+    def from_solver(_):
+        # unroll=False keeps a while_loop in this branch so XLA cannot
+        # speculate it; the solver only actually executes on the (rare)
+        # frames with ambiguous pairings (:628).
+        return hungarian.linear_sum_assignment(tie_cost, unroll=False)
 
-        def from_solver(_):
-            # unroll=False keeps a while_loop in this branch so XLA cannot
-            # speculate it; the solver only actually executes on the (rare)
-            # frames with ambiguous pairings (:628).
-            return hungarian.linear_sum_assignment(
-                tie_cost,
-                unroll=False,
-                use_pallas=False,
-            )
-
-        assignment = jax.lax.cond(need_solver, from_solver, from_mask, None)
-    else:
-        # Unconditional solve (the cond would be speculated away under the
-        # frame-batched fusion path anyway); the mask-derived assignment
-        # still overrides it on unambiguous frames for exact reference
-        # parity of that path. When the solve's result will be discarded,
-        # feed a trivially-solvable matrix instead: the Pallas JV's search
-        # loops are data-dependent (early exit), so unambiguous steps —
-        # the common case — cost almost nothing.
-        solver_cost = tie_cost
-        trivial = jnp.where(
-            jnp.arange(h)[:, None] == jnp.arange(d)[None, :],
-            jnp.asarray(0.0, dtype),
-            jnp.asarray(1.0, dtype),
-        )
-        solved = hungarian.linear_sum_assignment(
-            jnp.where(need_solver, solver_cost, trivial),
-            use_pallas=config.assignment_impl == "pallas",
-        )
-        assignment = jnp.where(need_solver, solved, from_mask(None))
+    assignment = jax.lax.cond(need_solver, from_solver, from_mask, None)
 
     # Interpret the assignment (:636-673). An assigned *valid* detection
     # either extends the hypothesis (feasible) or spawns a new one
@@ -311,6 +281,23 @@ def _associate_camera(
     )
 
 
+# The Triton fold keeps [S, S] tiles in registers, S the power of two above
+# max(H, D); "auto" uses it up to this width.
+_TRITON_MAX_TILE = 128
+
+
+def resolve_assignment_impl(impl: str, h: int, d: int) -> str:
+    """The association fold `impl` stands for at H hypotheses x D
+    detections on the default backend: "auto" is the Triton kernel on a GPU
+    (up to _TRITON_MAX_TILE-wide tiles) and the cond-guarded XLA fold
+    elsewhere; "cond_while" and "triton" are taken literally."""
+    if impl != "auto":
+        return impl
+    if jax.default_backend() == "gpu" and max(h, d) < _TRITON_MAX_TILE:
+        return "triton"
+    return "cond_while"
+
+
 def associate(
     kp_n: jnp.ndarray,
     cov_n: jnp.ndarray,
@@ -319,6 +306,7 @@ def associate(
     rig: CameraRig,
     config: FusionConfig,
     unroll_cameras: bool = False,
+    interpret: bool = False,
 ) -> HypothesisSet:
     """Greedy cross-view association over all cameras.
 
@@ -335,6 +323,8 @@ def associate(
       det_score: [C, D] per-detection person scores.
       det_ok: [C, D] detection usable (valid slot with enough keypoints).
       rig: camera rig (F used).
+      interpret: run the "triton" fold in the Pallas interpreter (CPU
+        tests); never implied by the backend.
 
     Returns:
       HypothesisSet with fixed max_hypotheses slots.
@@ -362,34 +352,22 @@ def associate(
     )  # [C2, C1*D1, D2]: the scan over the current camera slices axis 0.
     conf_obs = (det_score > 0.5).astype(dtype).reshape(c * d)  # (:352)
 
-    impl = config.assignment_impl
-    if impl == "auto":
-        # The default resolves per backend: on TPU the fused Pallas fold —
-        # one launch replaces the C-step scan's serialized rounds of small
-        # kernels (measured on the 16-cam online step, v5e: 0.42 ms vs
-        # 1.97 ms for the cond-guarded XLA scan) — elsewhere the
-        # cond-guarded while-loop JV (CPU tests, oracles). An explicit
-        # "cond_while" is honored literally on every backend.
-        if jax.default_backend() == "tpu" and h <= 128 and d <= 128:
-            impl = "pallas_scan"
-        else:
-            impl = "cond_while"
-    if impl != config.assignment_impl:
-        config = dataclasses.replace(config, assignment_impl=impl)
+    if resolve_assignment_impl(config.assignment_impl, h, d) == "triton":
+        # The whole C-step fold in one kernel program per frame (cost
+        # assembly + JV + state update per camera): see
+        # ops.association_triton. Bit-equal to the fold below.
+        from smartedgesensor3dhumanpose_tpu.ops import association_triton
 
-    if impl == "pallas_scan":
-        # The whole C-step fold in ONE Pallas launch (assembly matmul + JV
-        # + state update per camera, 8 frames sublane-packed into the JV):
-        # see ops.association_pallas. Bit-equal to the scan below except on
-        # exactly-tied solver optima (documented there).
-        from smartedgesensor3dhumanpose_tpu.ops import association_pallas
-
-        scan = association_pallas.make_associate_scan(
+        fold = association_triton.make_associate_fold(
+            interpret=interpret,
             h_cap=h,
             gate=float(config.max_epipolar_error),
             max_cost=float(config.max_cost),
+            clip=_ASSIGN_COST_CLIP,
+            tie_eps=_SOLVER_TIE_EPS,
+            invalid_cost=_INVALID_DET_COST,
         )
-        det_slot, n_hyp, n_dropped = scan(ctab, conf_obs, det_ok)
+        det_slot, n_hyp, n_dropped = fold(ctab, conf_obs, det_ok)
         carry = _AssocCarry(
             det_slot=det_slot,
             cam_mask=det_slot >= 0,

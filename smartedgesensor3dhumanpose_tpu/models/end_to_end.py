@@ -3,9 +3,9 @@
 The reference splits the system across hardware: 2D CNNs on edge sensors,
 fusion on a desktop, connected by a network with ~100 ms feedback latency
 (README.md:7-11, g_avg_delay skeleton_3d_triang_mult_node.cpp:63). When all
-camera streams reach one TPU, the detector (models.keypoint_cnn), multi-view
-fusion, LM smoothing/tracking and reprojection feedback fuse into a single
-XLA program per frame — the "end-to-end on-TPU variant" of BASELINE.json.
+camera streams reach one accelerator, the detector (models.keypoint_cnn),
+multi-view fusion, LM smoothing/tracking and reprojection feedback fuse into
+a single XLA program per frame — the end-to-end variant of BASELINE.json.
 """
 
 from __future__ import annotations

@@ -1,13 +1,13 @@
-"""Lightweight on-TPU 2D keypoint CNN (heatmap head) + decoder.
+"""Lightweight on-device 2D keypoint CNN (heatmap head) + decoder.
 
 The reference's 2D pose CNNs run on the smart edge sensors themselves
 (Google EdgeTPU boards, README.md:7-11) and only their keypoint/covariance
-messages reach this system. For the fully-fused "end-to-end on-TPU" variant
-(BASELINE.json configs), this module provides an equivalent detector that
-runs on the same chip as the fusion pipeline:
+messages reach this system. For the fully-fused end-to-end variant (pixels
+in, BASELINE.json configs), this module provides an equivalent detector
+that runs on the same device as the fusion pipeline:
 
-* a small bfloat16-friendly convolutional backbone + heatmap head sized for
-  the MXU (channel counts in multiples of 128 where it matters),
+* a small bfloat16 convolutional backbone + heatmap head (channel counts in
+  multiples of 128 where it matters, a width the tensor cores tile well),
 * a fixed-slot multi-person decoder: D peaks per camera via iterative
   masked argmax (greedy NMS), each refined to sub-pixel by a local
   soft-argmax, with per-keypoint confidence and 2x2 covariance from the
@@ -33,7 +33,7 @@ class DetectorConfig:
     num_joints: int = 17
     image_size: Tuple[int, int] = (480, 640)  # (H, W)
     heatmap_stride: int = 8
-    width: int = 128  # base channel count (one MXU tile)
+    width: int = 128  # base channel count
     depth: int = 4    # conv stages in the backbone
     max_detections: int = 6
     # Peak decoding.

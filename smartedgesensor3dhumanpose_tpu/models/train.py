@@ -1,4 +1,4 @@
-"""Training for the on-TPU keypoint detector on synthetic hall scenes.
+"""Training for the on-device keypoint detector on synthetic hall scenes.
 
 The reference never trains anything in-repo (its 2D CNNs live on the edge
 sensors); this module makes the beyond-reference end-to-end variant

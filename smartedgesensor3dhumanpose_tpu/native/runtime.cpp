@@ -1,7 +1,7 @@
 // Native host runtime: N-way approximate-time synchronizer + latest-wins
 // frame slot.
 //
-// TPU-native equivalent of the reference's header-only C++ sync layer
+// Native equivalent of the reference's header-only C++ sync layer
 // (skeleton_3d/include/my_message_filters/sync_policies/approximate_time_vec.h
 // and synchronizer_vec.h) and its producer/consumer worker handoff
 // (skeleton_3d_triang_mult_node.cpp:66-69,999-1006). The synchronization

@@ -203,15 +203,8 @@ def pairwise_association_costs_packed(
     """
     c, dd, j, _ = kp.shape
     iu, ju = np.triu_indices(c, k=1)  # [Np] static pair index tables
-    # Measured limit (round 4, TPU v5e, 64 cams x 25 dets): this XLA form
-    # runs at 0.95 ms/frame, and a VMEM-resident Pallas kernel of the same
-    # reduction (pair axis on lanes, per-joint [D1, D2, 128] partials, no
-    # HBM intermediates) measured 0.95 ms/frame bit-identically — i.e. the
-    # op is at the VPU compute bound for this shape, not layout- or
-    # HBM-bound. Rejected variants: pair-axis-minor layout (1.0x), unrolled
-    # per-joint accumulation (1.5x slower), bf16 product (1.2x slower and
-    # 2e3x less accurate), K=3 dot_general on the MXU (3.8x slower). The
-    # kernel was deleted rather than kept at parity.
+    # A bf16 product here is ~2e3x less accurate; the reduction stays in
+    # the input dtype.
     # Joint-major layout [*, J, D]: the heavy [Np, J, D1, D2] product below
     # then carries the detection axes minor (D1 sublanes x D2 lanes) instead
     # of the 17-joint axis — measurably better VPU lane utilization than the

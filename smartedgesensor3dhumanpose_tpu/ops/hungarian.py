@@ -98,9 +98,9 @@ def _solve_square(cost: jnp.ndarray) -> jnp.ndarray:
 
 def _solve_square_unrolled(cost: jnp.ndarray) -> jnp.ndarray:
     """Fully-unrolled JV for small N: no `while_loop`s, so the whole solve
-    fuses into a handful of TPU kernels instead of hundreds of sequential
-    loop-iteration dispatches (the dominant cost of the loop form on TPU —
-    each device-side loop iteration costs ~10 us regardless of width).
+    fuses into a handful of kernels instead of hundreds of sequential
+    loop-iteration dispatches, each of which costs a fixed launch and
+    predicate round trip regardless of width.
 
     Identical algorithm to `_solve_square`; every data-dependent loop is
     replaced by a static-trip-count loop with masked updates (an augmenting
@@ -155,7 +155,7 @@ def _solve_square_unrolled(cost: jnp.ndarray) -> jnp.ndarray:
     # Rows run in a scan (the body — one fully-unrolled augmenting search —
     # compiles once); the inner unroll removes the per-iteration loop
     # dispatch, and a modest row unroll amortizes the device-loop overhead
-    # (~100 us/iteration on TPU) without the compile blowup of a full unroll.
+    # without the compile blowup of a full unroll.
     (_, _, roc), _ = jax.lax.scan(
         assign_row,
         (u0, v0, roc0),
@@ -173,8 +173,6 @@ _UNROLL_LIMIT = 24
 def linear_sum_assignment(
     cost: jnp.ndarray,
     unroll: bool = True,
-    use_pallas: bool | None = None,
-    row_active: jnp.ndarray | None = None,
 ) -> jnp.ndarray:
     """Minimum-cost assignment of a rectangular [R, C] cost matrix.
 
@@ -189,16 +187,6 @@ def linear_sum_assignment(
         a rarely-taken `lax.cond`: XLA speculates loop-free branches into
         always-executed selects, so a branch-protected call must keep a
         while_loop inside to stay a true branch.
-      use_pallas: run the single-kernel Pallas TPU solver
-        (ops.hungarian_pallas) — ~40x faster than the XLA forms in
-        sequential contexts. Default: automatically on TPU for N <= 120.
-      row_active: optional [R] mask — a PERFORMANCE hint for the Pallas
-        path: rows with 0 skip their augmenting search and return -1. Only
-        pass it for rows whose assignment the caller discards AND whose cost
-        rows sit on a tier strictly above every active row's entries (so
-        they can never displace an active row's optimum), and only with
-        R <= C (no dummy zero columns). The XLA fallback ignores it — by the
-        above contract the consumer-visible outputs are identical.
 
     Returns:
       col_of_row: [R] int32 column per row, -1 for unassigned rows.
@@ -207,16 +195,6 @@ def linear_sum_assignment(
     if cost.dtype == jnp.float16:
         cost = cost.astype(jnp.float32)
     n = max(r, c)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu" and n <= 120
-    if use_pallas:
-        from smartedgesensor3dhumanpose_tpu.ops import hungarian_pallas
-
-        if row_active is not None:
-            # Direct single-problem call (the custom_vmap wrapper does not
-            # thread the mask; callers passing row_active are sequential).
-            return hungarian_pallas._lsa_pallas_single(cost, row_active)
-        return hungarian_pallas.linear_sum_assignment_pallas(cost)
     padded = jnp.zeros((n, n), cost.dtype).at[:r, :c].set(cost)
     if unroll and n <= _UNROLL_LIMIT:
         roc = _solve_square_unrolled(padded)

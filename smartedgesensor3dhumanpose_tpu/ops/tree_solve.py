@@ -14,8 +14,8 @@ Two implementations with identical math: the level-grouped production
 solver (`tree_solve_levels`, ~6 batched 3x3 levels) and a bone-sequential
 readable variant (`tree_solve`, the oracle in tests). All 3x3 block
 contractions are componentwise multiply-adds (`_m3`/`_mv3`), not dots —
-TPU dot_generals default to bf16 passes, which cost ~3000x the accuracy
-here, and Precision.HIGHEST costs ~40x the time at these sizes.
+true float32 whatever precision the backend's dots default to, without a
+multi-pass HIGHEST product on these tiny blocks.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def _levels() -> list[np.ndarray]:
     level up, so they can be eliminated SIMULTANEOUSLY (batched 3x3 ops with
     a scatter-add for sibling bones sharing a parent). The skeleton tree is
     ~6 levels deep, so the sequential chain shrinks from NUM_BONES steps to
-    ~6 — the difference between launch-bound and compute-bound on TPU.
+    ~6 — the difference between launch-bound and compute-bound.
     """
     parents = {}
     for b in range(_B):
@@ -93,9 +93,8 @@ LEVELS = _levels()
 
 def _m3(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched 3x3 @ 3x3 as componentwise multiply-add (no dot_general):
-    true float32 on the VPU — TPU dots default to bf16 passes, and
-    Precision.HIGHEST's multi-pass decomposition costs ~40x on these tiny
-    sequential-scan blocks."""
+    true float32 whatever the backend's dot precision, with no multi-pass
+    HIGHEST decomposition on these tiny sequential-scan blocks."""
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 
 

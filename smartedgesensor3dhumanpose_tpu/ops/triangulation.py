@@ -1,6 +1,6 @@
 """Masked, batched confidence-weighted DLT triangulation.
 
-TPU-native rework of the reference's per-joint scalar triangulation
+Batched-array rework of the reference's per-joint scalar triangulation
 (skeleton_3d_triang_mult_node.cpp:425-465, OpenPose-3D lineage :740-743).
 The reference assembles a 2k x 4 design matrix A per joint and takes the
 smallest right singular vector via JacobiSVD; here we form the 4x4 normal

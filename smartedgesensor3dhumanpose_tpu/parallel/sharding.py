@@ -1,7 +1,7 @@
 """Multi-chip sharding of the pipeline over a jax.sharding.Mesh.
 
 The reference scales by running more ROS nodes/threads on one machine; the
-TPU-native scale-out instead exploits the pipeline's structure:
+scale-out here instead exploits the pipeline's structure:
 
 * The fusion stage (association + triangulation) is *stateless per frame* —
   frames are data-parallel. The `data` mesh axis shards the time/batch axis
@@ -17,7 +17,10 @@ TPU-native scale-out instead exploits the pipeline's structure:
   are a negligible fraction of per-frame compute.
 
 Everything uses GSPMD (`jax.jit` with NamedSharding + sharding constraints)
-rather than hand-written collectives; collectives ride ICI automatically.
+rather than hand-written collectives; XLA hands the collectives to NCCL. The
+cards of one host are joined all to all by NVLink, so the mesh shape
+follows the algorithm (frames on `data`, hypotheses on `model`), not a
+physical topology.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from smartedgesensor3dhumanpose_tpu import fusion, pipeline, reprojection, tracking
+from smartedgesensor3dhumanpose_tpu import fusion, pipeline, tracking
 from smartedgesensor3dhumanpose_tpu import types as types_lib
 from smartedgesensor3dhumanpose_tpu.config import PipelineConfig
 from smartedgesensor3dhumanpose_tpu.types import CameraRig, Frame, TrackerState
@@ -150,38 +153,14 @@ def run_offline_sharded(
         persons = _constrain(persons, mesh, P())
         pre = _constrain(pre, mesh, P())
 
-        def track_body(carry, xs):
-            person_t, pivot_t, fb_t, pre_t = xs
-            carry, out = tracking.step(
-                carry,
-                person_t,
-                pivot_t.astype(person_t.xyz.dtype),
-                fb_t,
-                config.prior,
-                config.tracker,
-                precomputed=pre_t,
-            )
-            return carry, out
-
-        state_out, track_outs = jax.lax.scan(
-            track_body, state, (persons, pivots, frames.fb_delay, pre)
+        state_out, track_outs = pipeline.track_frames(
+            state, persons, pivots, frames.fb_delay, pre, config
         )
 
         # ---- stage 3: data-parallel reprojection feedback.
         pred = _constrain(track_outs.fused_pred, mesh, P("data", "model"))
-
-        def reproj_one(pred_t, delta_t, ts_t):
-            return reprojection.reproject(
-                pred_t,
-                rig,
-                config.prior.pose_method,
-                delta_t,
-                ut_kappa=config.fusion.ut_kappa,
-                ts_per_cam=ts_t,
-            )
-
-        feedback = jax.vmap(reproj_one)(
-            pred, track_outs.pred_delta_t, frames.cam_stamp
+        feedback = pipeline.reproject_frames(
+            pred, track_outs.pred_delta_t, frames.cam_stamp, rig, config
         )
         c = frames.cam_stamp.shape[-1]
         bbox_c, bbox_s = jax.vmap(types_lib.person_bbox3d)(

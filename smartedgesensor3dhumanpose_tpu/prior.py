@@ -40,11 +40,9 @@ _K = skeleton.NUM_FUSION_JOINTS
 def _spd_solve(h_eq: jnp.ndarray, rhs: jnp.ndarray):
     """Batched SPD solve of the equilibrated system; rhs [P, N, R].
 
-    XLA's cholesky/triangular-solve custom calls win at this size: a
-    hand-written single-kernel Pallas VMEM factor+solve was measured at
-    4264 us/frame vs 1691 us/frame for this path in the tracker scan
-    (64 sequential masked-tile elimination steps cannot beat the blocked
-    custom call), so it was removed.
+    XLA's cholesky/triangular-solve custom calls: 64 sequential
+    masked-tile elimination steps in a hand-written kernel do not beat the
+    blocked custom call at this size.
     """
     chol = jax.scipy.linalg.cholesky(h_eq, lower=True)
     return jax.scipy.linalg.cho_solve((chol, True), rhs)
@@ -295,8 +293,8 @@ def _linearize(
     """Assemble H [P, K, 3, K, 3], gradient g [P, K, 3] and error [P].
 
     The block structure is materialized with static one-hot/incidence
-    einsums rather than scatters (scatters into a 63x63 tensor dominate the
-    LM iteration cost on TPU; the incidence form is two tiny contractions).
+    einsums rather than scatters (scatters into a 63x63 tensor would
+    dominate the LM iteration; the incidence form is two tiny contractions).
     """
     dtype = x.dtype
     w_r, act, err, u, r_b, wb = _residual_terms(
@@ -353,7 +351,7 @@ def _linearize_tree(
     g = act[..., None] * w_r
     hdiag = g_in.inv_cov  # unmeasured joints keep their unit anchors
 
-    # Signed / unsigned incidence (static): scatter-free MXU contractions.
+    # Signed / unsigned incidence (static): scatter-free contractions.
     inc = _signed_incidence(bi, bj, dtype)
     inc2 = jnp.abs(inc)
 
@@ -410,13 +408,13 @@ def optimize(
         # Jacobi equilibration: the root block's information is scaled by
         # root_sigma_factor^2 (1e8 relative to the unit anchors), putting the
         # raw condition number beyond float32; the symmetrically scaled
-        # system is well-conditioned on TPU.
+        # system is well-conditioned in float32.
         sc = 1.0 / jnp.sqrt(
             jnp.maximum(jnp.diagonal(damped, axis1=-2, axis2=-1), 1e-30)
         )
         h_eq = damped * sc[:, :, None] * sc[:, None, :]
-        # SPD system: Cholesky is ~2x cheaper than LU on TPU and never
-        # pivots (static schedule).
+        # SPD system: Cholesky is cheaper than LU and never pivots (static
+        # schedule).
         delta = sc * _spd_solve(h_eq, (-g2 * sc)[..., None])[..., 0]
         return delta.reshape(p, _K, 3)
 

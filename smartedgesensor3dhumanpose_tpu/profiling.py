@@ -9,10 +9,11 @@ sequential tracker, reprojection feedback — plus the fused end-to-end
 program, using pipelined repetitions (dispatch all reps, block once) so the
 number reported is device time, not host-dispatch latency.
 
-The stage bodies mirror `pipeline.Pipeline._scan_impl` exactly (same chunked
-`lax.map` batching, same TPU kernel dispatch rules); `full` is the real
-`run_offline`, so `full` vs the stage sum also exposes what XLA fusion
-across stage boundaries buys.
+Each stage is the very function `pipeline.Pipeline._scan_impl` composes
+(`pipeline.fuse_frames`, `smooth_frames`, `track_frames`,
+`reproject_frames`), jitted on its own; `full` is the real `run_offline`,
+so `full` vs the stage sum also exposes what XLA fusion across stage
+boundaries buys.
 
 CLI:
     python -m smartedgesensor3dhumanpose_tpu.profiling            # 16-cam demo
@@ -22,20 +23,20 @@ CLI:
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict
 
 import jax
 
 from smartedgesensor3dhumanpose_tpu import pipeline as pl
-from smartedgesensor3dhumanpose_tpu import fusion, reprojection, tracking
 from smartedgesensor3dhumanpose_tpu.config import PipelineConfig
 from smartedgesensor3dhumanpose_tpu.types import Frame
 
 
 def _timeit(fn, *args, reps: int) -> float:
     """Seconds per call: warm once, then pipeline `reps` dispatches and
-    block on all of them (see bench.py's methodology note)."""
+    block on all of them."""
     out = fn(*args)
     jax.block_until_ready(out)
     t0 = time.perf_counter()
@@ -58,70 +59,14 @@ def profile_stages(
     batch = pipe._fusion_batch
     num_frames = int(frames.cam_stamp.shape[0])
 
-    fusion_cfg = config.fusion  # fusion.associate resolves the TPU impl
-
-    def fuse_one(frame):
-        frame, pivot = pl.mask_stale_cameras(frame, fusion_cfg.max_sync_diff)
-        persons, n_drop = fusion.fuse_frame(
-            frame, rig, fusion_cfg, unroll_cameras=True, with_stats=True
-        )
-        return persons, pivot, n_drop
-
-    stage_fuse = jax.jit(
-        lambda fr: jax.lax.map(fuse_one, fr, batch_size=batch)
+    stage_fuse = jax.jit(lambda fr: pl.fuse_frames(fr, rig, config, batch))
+    stage_smooth = jax.jit(lambda p: pl.smooth_frames(p, config, batch))
+    stage_track = jax.jit(
+        lambda s, p, pv, fb, pr: pl.track_frames(s, p, pv, fb, pr, config)
     )
-    stage_smooth = jax.jit(
-        lambda p: jax.lax.map(
-            lambda q: tracking.smooth_cold(q, config.prior),
-            p,
-            batch_size=batch,
-        )
+    stage_reproj = jax.jit(
+        lambda pred, dt, ts: pl.reproject_frames(pred, dt, ts, rig, config)
     )
-
-    p_slots = config.fusion.max_hypotheses
-    t_slots = config.tracker.max_tracks
-    use_tracker_kernel = (
-        jax.default_backend() == "tpu" and p_slots <= t_slots <= 128
-    )
-    if use_tracker_kernel:
-        from smartedgesensor3dhumanpose_tpu.ops import tracker_pallas
-
-        stage_track = jax.jit(
-            lambda s, p, pv, fb, pr: tracker_pallas.tracker_scan(
-                s, p, pv, fb, pr, config.prior, config.tracker
-            )
-        )
-    else:
-        def _track_scan(s, p, pv, fb, pr):
-            def body(carry, xs):
-                person_t, pivot_t, fb_t, pre_t = xs
-                return tracking.step(
-                    carry,
-                    person_t,
-                    pivot_t.astype(person_t.xyz.dtype),
-                    fb_t,
-                    config.prior,
-                    config.tracker,
-                    precomputed=pre_t,
-                )
-
-            return jax.lax.scan(body, s, (p, pv, fb, pr))
-
-        stage_track = jax.jit(_track_scan)
-
-    @jax.jit
-    def stage_reproj(fused_pred, pred_dt, ts):
-        def one(pred_t, delta_t, ts_t):
-            return reprojection.reproject(
-                pred_t,
-                rig,
-                config.prior.pose_method,
-                delta_t,
-                ut_kappa=config.fusion.ut_kappa,
-                ts_per_cam=ts_t,
-            )
-
-        return jax.vmap(one)(fused_pred, pred_dt, ts)
 
     state = pipe.init_state()
     per_frame_ms = {}
@@ -150,6 +95,76 @@ def profile_stages(
     )
 
     return {k: v / num_frames * 1e3 for k, v in per_frame_ms.items()}
+
+
+def device_event_summary(trace_dir: str, top: int = 25) -> Dict:
+    """Reduce a `jax.profiler` trace to device numbers.
+
+    For every device plane (`/device:...`): the traced window, the busy time
+    (union of the intervals in which an operation ran) and the events
+    counted by name, the `top` most frequent with their summed durations.
+    """
+    import collections
+    import glob
+    import os
+
+    paths = glob.glob(
+        os.path.join(trace_dir, "**", "*.xplane.pb"), recursive=True
+    )
+    if not paths:
+        raise FileNotFoundError(f"no .xplane.pb under {trace_dir}")
+    data = jax.profiler.ProfileData.from_file(max(paths, key=os.path.getmtime))
+    out = {}
+    for plane in data.planes:
+        if not plane.name.startswith("/device:"):
+            continue
+        spans, count, dur = [], collections.Counter(), collections.Counter()
+        for line in plane.lines:
+            for ev in line.events:
+                spans.append((ev.start_ns, ev.start_ns + ev.duration_ns))
+                count[ev.name] += 1
+                dur[ev.name] += ev.duration_ns
+        if not spans:
+            continue
+        spans.sort()
+        busy, end = 0.0, spans[0][0]
+        for lo, hi in spans:
+            if hi > end:
+                busy += hi - max(lo, end)
+                end = hi
+        window = spans[-1][1] - spans[0][0]
+        out[plane.name] = {
+            "window_ms": window / 1e6,
+            "busy_ms": busy / 1e6,
+            "events": sum(count.values()),
+            "top": [
+                {"name": n, "count": c, "ms": dur[n] / 1e6}
+                for n, c in count.most_common(top)
+            ],
+        }
+    return out
+
+
+def trace_online_steps(pipe: pl.Pipeline, frames: Frame, trace_dir: str,
+                       steps: int = 8) -> Dict:
+    """Trace `steps` online `Pipeline.step` calls (after a warm-up) and
+    summarize the device events; counts are per step."""
+    at = lambda t: jax.tree.map(lambda a: a[t], frames)  # noqa: E731
+    st, out = pipe.step(pipe.init_state(), at(0))
+    jax.block_until_ready(out)
+    jax.profiler.start_trace(trace_dir)
+    try:
+        for t in range(1, steps + 1):
+            st, out = pipe.step(st, at(t))
+            jax.block_until_ready(out)
+    finally:
+        jax.profiler.stop_trace()
+    summary = device_event_summary(trace_dir)
+    for dev in summary.values():
+        dev["events_per_step"] = dev["events"] / steps
+        for row in dev["top"]:
+            row["per_step"] = row["count"] / steps
+    return summary
 
 
 def _demo_inputs(big: bool, batch: int | None, num_frames: int | None):
@@ -191,6 +206,9 @@ def main(argv=None) -> None:
     import argparse
     import json
 
+    from smartedgesensor3dhumanpose_tpu import compile_cache
+
+    compile_cache.enable()
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--big", action="store_true",
                    help="64-camera x 25-person scaled hall")
@@ -199,9 +217,22 @@ def main(argv=None) -> None:
     p.add_argument("--frames", type=int, default=None)
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--json", action="store_true", help="one JSON line")
+    p.add_argument("--trace-online", metavar="DIR", default=None,
+                   help="trace 8 online steps into DIR and print the "
+                        "device-event summary instead")
+    p.add_argument("--assignment-impl", default="auto",
+                   help="FusionConfig.assignment_impl of the run")
     args = p.parse_args(argv)
 
     pipe, frames = _demo_inputs(args.big, args.batch, args.frames)
+    if args.assignment_impl != "auto":
+        cfg = pipe.config
+        cfg = dataclasses.replace(cfg, fusion=dataclasses.replace(
+            cfg.fusion, assignment_impl=args.assignment_impl))
+        pipe = pl.Pipeline(pipe.rig, cfg, fusion_batch=pipe._fusion_batch)
+    if args.trace_online:
+        print(json.dumps(trace_online_steps(pipe, frames, args.trace_online)))
+        return
     stages = profile_stages(pipe, frames, reps=args.reps)
     if args.json:
         print(json.dumps(

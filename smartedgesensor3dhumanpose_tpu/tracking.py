@@ -81,7 +81,7 @@ def smooth_cold(persons: Persons3D, prior_cfg: PriorConfig):
     tests/test_pipeline.py::test_offline_cold_start_matches_online), so the
     offline throughput mode hoists this whole stage OUT of the scan and
     batches it over all frames — the dominant per-frame cost (4-6 LM
-    iterations of 63x63 solves) runs as one big MXU-friendly batch instead
+    iterations of 63x63 solves) runs as one big batch instead
     of 256 sequential launches.
 
     Returns the `precomputed` tuple accepted by `step`.
@@ -109,7 +109,6 @@ def step(
     output of `smooth_cold` for this frame (offline mode); when None the LM
     runs here with the reference's track warm start."""
     dtype = persons.xyz.dtype
-    p = persons.xyz.shape[0]
     t_slots = state.alive.shape[0]
     w = state.fb_delay_buffer.shape[0]
     t = jnp.asarray(t, dtype)
@@ -130,19 +129,11 @@ def step(
     # ---- association (:548-580)
     # Every indexed access below is a one-hot contraction / masked reduce,
     # not a gather or scatter: this step runs inside the sequential
-    # per-frame scan, where XLA lowers vector-indexed gathers/scatters to
-    # serialized dynamic-slices on TPU. The one-hot selections are exact
-    # (at most one nonzero per row; heinsum is Precision.HIGHEST).
+    # per-frame scan. The one-hot selections are exact (at most one nonzero
+    # per row; heinsum is Precision.HIGHEST).
     cost = _association_cost(state, persons, t, cfg, prior_cfg)
-    # Invalid persons' rows are constant max_dist (clipped to _COST_CLIP,
-    # strictly above the dist_threshold gate and above any real cost), so
-    # their assignments are discarded by `matched` below whatever slot they
-    # land on — skip their augmenting searches in the Pallas solver
-    # (row_active contract in ops.hungarian). Requires P <= T slots (no
-    # dummy zero columns in the padded square problem).
-    row_hint = persons.valid if t_slots >= p else None
     assignment = hungarian.linear_sum_assignment(
-        jnp.minimum(cost, _COST_CLIP), row_active=row_hint
+        jnp.minimum(cost, _COST_CLIP)
     )  # [P] -> track slot or -1
     t_ids = jnp.arange(t_slots, dtype=jnp.int32)
     A = assignment[:, None] == t_ids[None, :]  # [P, T]; -1 matches nothing

@@ -1,13 +1,12 @@
-"""Differential tests for the fused Pallas association-scan kernel.
+"""Differential tests for the Pallas-Triton association-fold kernel.
 
-Oracle: fusion.associate's pure-XLA scan path (itself differentially tested
-against the compiled reference C++ in test_reference_parity_frame.py). The
-kernel runs in f32 (interpret mode on CPU), the oracle in the suite's f64 —
-the compared outputs are the INTEGER association results (which detection
-each hypothesis observes per camera), which only differ if an f32 rounding
-flips a gate comparison; the scenes below keep costs away from the 0.045
-gate's razor edge, and any tied-optimum solver frames are avoided by
-construction (continuous pixel noise).
+Oracle: fusion.associate's pure-XLA cond_while fold (itself differentially
+tested against the compiled reference C++ in
+test_reference_parity_frame.py). The kernel runs in the Pallas interpreter
+(explicit `interpret=True`), at the suite's float64 like the oracle; the
+compared outputs are the INTEGER association results (which detection each
+hypothesis observes per camera) and the data they gather, which must be
+identical.
 """
 
 import dataclasses
@@ -54,7 +53,10 @@ def _associate_inputs(rig, data, ti, config):
 
 def _run(impl, kp_n, cov_n, det_score, det_ok, rig, config):
     cfg = dataclasses.replace(config, assignment_impl=impl)
-    hyps = fusion.associate(kp_n, cov_n, det_score, det_ok, rig, cfg)
+    hyps = fusion.associate(
+        kp_n, cov_n, det_score, det_ok, rig, cfg,
+        interpret=impl == "triton",
+    )
     return jax.tree_util.tree_map(np.asarray, hyps)
 
 
@@ -73,8 +75,8 @@ def test_fused_scan_matches_xla_scan(scenario):
     )
     for ti in range(int(data["kp2d"].shape[0])):
         inputs = _associate_inputs(rig, data, ti, config)
-        want = _run("pallas", *inputs, rig, config)
-        got = _run("pallas_scan", *inputs, rig, config)
+        want = _run("cond_while", *inputs, rig, config)
+        got = _run("triton", *inputs, rig, config)
         np.testing.assert_array_equal(
             got.cam_mask, want.cam_mask, err_msg=f"{scenario} t{ti}"
         )
@@ -88,14 +90,14 @@ def test_fused_scan_matches_xla_scan(scenario):
 
 
 def test_fused_scan_batched_matches_per_frame():
-    """The custom_vmap batched dispatch (the offline pipeline path) equals
-    frame-by-frame single calls, including a padded tail group (B=5 > 4)."""
+    """The custom_vmap batched dispatch (the offline pipeline path, one
+    kernel program per frame) equals frame-by-frame single calls."""
     rig, data = _scene_inputs(5, 3, 5, seed=3)
     config = FusionConfig(
         num_cameras=5,
         max_dets_per_cam=int(data["kp2d"].shape[2]),
         max_hypotheses=12,
-        assignment_impl="pallas_scan",
+        assignment_impl="triton",
     )
     frames = [
         _associate_inputs(rig, data, ti, config)
@@ -104,7 +106,9 @@ def test_fused_scan_batched_matches_per_frame():
     stacked = [jnp.stack(x) for x in zip(*frames)]
 
     def one(kp_n, cov_n, det_score, det_ok):
-        return fusion.associate(kp_n, cov_n, det_score, det_ok, rig, config)
+        return fusion.associate(
+            kp_n, cov_n, det_score, det_ok, rig, config, interpret=True
+        )
 
     batched = jax.vmap(one)(*stacked)
     for ti, f in enumerate(frames):
@@ -121,7 +125,7 @@ def test_fused_scan_batched_matches_per_frame():
 
 
 def test_fused_scan_overflow_counts():
-    """Over-capacity frames count dropped spawns exactly like the XLA path."""
+    """Over-capacity frames count dropped spawns exactly like the XLA fold."""
     rig, data = _scene_inputs(4, 6, 2, seed=7)
     config = FusionConfig(
         num_cameras=4,
@@ -130,7 +134,7 @@ def test_fused_scan_overflow_counts():
     )
     for ti in range(2):
         inputs = _associate_inputs(rig, data, ti, config)
-        want = _run("pallas", *inputs, rig, config)
-        got = _run("pallas_scan", *inputs, rig, config)
+        want = _run("cond_while", *inputs, rig, config)
+        got = _run("triton", *inputs, rig, config)
         assert int(got.n_dropped) == int(want.n_dropped) > 0, ti
         np.testing.assert_array_equal(got.cam_mask, want.cam_mask)

@@ -132,7 +132,8 @@ def test_fuse_frame_noise_free_mm_accuracy():
 
 
 def test_fuse_frame_f32_matches_f64():
-    """The fixed-shape program must agree between dtypes (sanity for TPU)."""
+    """The fixed-shape program must agree between dtypes (the device runs
+    float32, the tests float64)."""
     cfg = synthetic.SceneConfig(
         num_cameras=8, num_people=3, num_frames=1, pixel_noise=1.0, seed=7
     )
@@ -303,7 +304,7 @@ def _associate_oracle(kp_n, cov_n, det_score, det_ok, F, cfg):
 
 def test_associate_matches_stepwise_oracle(rng):
     """The production association (frame-level pair-cost precompute, one-hot
-    table matmuls, Pallas/unrolled JV) must reproduce an explicit
+    table matmuls, cond-guarded JV) must reproduce an explicit
     list-of-hypotheses reimplementation camera by camera."""
     for trial, (cams, people, seed) in enumerate(
         [(6, 3, 0), (10, 5, 1), (16, 6, 2)]

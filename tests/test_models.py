@@ -1,4 +1,4 @@
-"""On-TPU 2D keypoint detector + end-to-end fused variant."""
+"""On-device 2D keypoint detector + end-to-end fused variant."""
 
 import jax
 import jax.numpy as jnp

@@ -33,8 +33,12 @@ def test_online_drops_backlog_under_load(prefer_native):
     state = pipe.init_state(dtype=jnp.float64)
     n = frames.kp2d.shape[0]
 
-    # Warm the compile so the hook delay dominates the step time.
-    pipe.step(state, jax.tree.map(lambda a: a[0], frames))
+    # Warm the compile so the hook delay dominates the step time (with a
+    # throwaway state: the step donates it).
+    pipe.step(
+        pipe.init_state(dtype=jnp.float64),
+        jax.tree.map(lambda a: a[0], frames),
+    )
 
     feed = 0.005
     slow = 0.025  # consumer ~5x slower than the producer
@@ -61,7 +65,11 @@ def test_online_drops_backlog_under_load(prefer_native):
 def test_online_no_drops_when_fast():
     pipe, frames = _setup(n_frames=10)
     state = pipe.init_state(dtype=jnp.float64)
-    pipe.step(state, jax.tree.map(lambda a: a[0], frames))
+    # Warm the compile with a throwaway state: the step donates it.
+    pipe.step(
+        pipe.init_state(dtype=jnp.float64),
+        jax.tree.map(lambda a: a[0], frames),
+    )
 
     st, out, report = online.run_online(
         pipe.step, state, frames, feed_interval_s=0.05
@@ -117,7 +125,9 @@ def test_online_synced_full_live_topology(tmp_path):
     builder = lambda fd: online.default_frame_builder(fd, dtype=jnp.float64)
     # Warm the compile with one offline-packed frame.
     offline_frames = list(replay_lib.replay_jsonl(path, 4, 2))
-    pipe.step(state, builder(offline_frames[0]))
+    pipe.step(
+        pipe.init_state(dtype=jnp.float64), builder(offline_frames[0])
+    )
 
     st, out, report = online.run_online_synced(
         pipe.step,
@@ -155,7 +165,10 @@ def test_online_synced_drop_under_load_and_sync_overflow(tmp_path):
 
     path, messages = _jsonl_messages(scene, tmp_path)
     builder = lambda fd: online.default_frame_builder(fd, dtype=jnp.float64)
-    pipe.step(state, builder(next(replay_lib.replay_jsonl(path, 4, 2))))
+    pipe.step(
+        pipe.init_state(dtype=jnp.float64),
+        builder(next(replay_lib.replay_jsonl(path, 4, 2))),
+    )
 
     # Camera 0 goes silent for frames 6..17: the other deques overflow the
     # policy's queue_size and messages are dropped inside the synchronizer.

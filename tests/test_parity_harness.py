@@ -1,7 +1,7 @@
-"""Guards of the per-round on-TPU parity harness (parity.py).
+"""Guards of the on-device parity harness (parity.py).
 
-The harness itself runs on the real TPU every bench (full oracle
-differential); here we pin the cheap host-side invariants so a bench.py
+The harness itself runs on the GPU in chip_smoke.py and bench.py (full
+oracle differential); here we pin the cheap host-side invariants so a bench.py
 edit that drifts the reused outputs fails in CI, not in the artifact.
 """
 

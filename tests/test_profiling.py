@@ -3,7 +3,7 @@
 CPU-sized smoke (tiny scene, 1 rep): the value of this test is that the
 profiler's stage wiring stays in sync with pipeline.Pipeline._scan_impl —
 it calls the same public stage functions, so an API drift breaks here
-rather than silently in a TPU-only dev session.
+rather than silently in a session on the card.
 """
 
 import jax.numpy as jnp
